@@ -1,6 +1,6 @@
 """On-demand-built native (C++) host runtime components.
 
-The TPU owns the compute path; the sequential host tail (chain backtracking
+The device owns the compute path; the sequential host tail (chain backtracking
 and compaction — the reference's pointer-walking loops, lchain.c:95-281) is
 native C++ for throughput, compiled once with g++ and cached by source hash.
 Falls back to the numpy implementation when no toolchain is available.
@@ -31,9 +31,10 @@ def _build_lib():
         with open(src, "rb") as fp:
             hasher.update(fp.read())
     tag = hasher.hexdigest()[:16]
+    # default: build/native inside the checkout (git ignores build/)
     cache = os.environ.get(
         "RAWHASH_TPU_NATIVE_CACHE",
-        os.path.expanduser("~/.cache/rawhash_tpu_native"),
+        os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "native"),
     )
     os.makedirs(cache, exist_ok=True)
     lib_path = os.path.join(cache, f"native_{tag}.so")

@@ -1,9 +1,9 @@
 """Device-side chain backtracking + compaction (batched).
 
-TPU-native re-design of the host tail's first half (reference:
+Device re-design of the host tail's first half (reference:
 mg_chain_backtrack, lchain.c:95-194 + compact_a, lchain.c:214-281): instead
-of shipping EVERY anchor's (f, p) to the host per chunk (O(anchors) D2H over
-a slow link), the sequential greedy backtrack runs on-device as one batched
+of shipping EVERY anchor's (f, p) to the host per chunk (O(anchors) D2H),
+the sequential greedy backtrack runs on-device as one batched
 ``lax.while_loop`` state machine — every read advances its own walk one step
 per iteration — and only tiny per-chain summaries leave the device.  Carried
 chain anchors (the reference's *_a arrays, rmap.cpp:111-116) never leave the
@@ -60,10 +60,8 @@ def backtrack_batch(
     )
 
     # per-read state arrays ride FLAT [B*N] (or [B*K]) buffers and every
-    # per-iteration access is a 1D gather/scatter at rows*width + idx.
-    # (A/B at 147k width measured this equal to the 2D-scatter form — XLA
-    # lowers both acceptably — but the 1D form is the shape the TPU scatter
-    # path optimizes first, and it keeps the loop state layout explicit.)
+    # per-iteration access is a 1D gather/scatter at rows*width + idx,
+    # which keeps the loop state layout explicit.
     def gather(arr, idx):
         if arr.ndim == 2:  # z_f/z_idx/f/p inputs stay 2D (read-only)
             return arr[rows, jnp.clip(idx, 0, arr.shape[1] - 1)]

@@ -1,19 +1,22 @@
-"""Chaining DP score-fill as a Pallas TPU kernel.
+"""Chaining DP score-fill as a Pallas kernel through the Triton route (GPU).
 
 Same recurrence as chain/device.py::chain_fill_batch (reference:
 mg_lchain_dp, lchain.c:439-505, minus the max_skip pruning — documented
-deviation), but the anchor loop runs as a fori_loop INSIDE one kernel with
-the predecessor ring buffer resident in VMEM:
+deviation), but the whole anchor loop of one read runs inside one program:
 
-  * layout: batch in lanes, window/anchors in sublanes — every per-anchor
-    step is a [W, B_blk] VPU op
-  * the lax.scan version re-materializes the ring carry through HBM every
-    step; here the ring never leaves VMEM, so the fill runs at VPU speed
-  * grid over batch blocks (VMEM budget: inputs [N, B_blk] x3 + outputs x2
-    + ring [W, B_blk] x4)
+  * grid: one program per read, so a batch of 256 reads gives 256 blocks
+    (the H100 has 132 SMs); programs run in parallel and share nothing
+  * the predecessor window (max_iter slots, padded to a power of two) lies
+    across the block's threads; the ring of recent anchors' key, tpos, qpos
+    and f stays in registers as fori_loop carries, where the lax.scan
+    version moves it through device memory at every anchor step
+  * the next anchor's planes are loaded one step ahead, so the load latency
+    hides behind the current step's window scoring
+  * only anchors below the read's n_anchors are visited; the wrapper masks
+    the rest of the outputs (f = 0, p = -1, as the scan writes them)
 
-The lax.scan implementation remains the oracle and the CPU/interpret path;
-tests assert bit-identical (f, p) between the two.
+The lax.scan implementation remains the oracle and the CPU path; tests run
+this kernel in interpret mode and assert bit-identical (f, p).
 """
 
 from __future__ import annotations
@@ -23,83 +26,58 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-INT32_MIN = -(2**31)  # python int: jnp module-level Arrays can't be captured by pallas kernels
+from .device import mg_log2_jnp
+
+INT32_MIN = -(2**31)  # python int: kernels cannot capture jnp array constants
+
+# warps per program: the window reductions are each step's critical path,
+# and one warp (8 slots per thread, shuffle-only reductions) measured
+# fastest of 1/2/4/8 on the H100 (PERF.md)
+NUM_WARPS = 1
 
 
-def _mg_log2(x):
-    """Bit-twiddled fast log2 (reference: lchain.c:23-31), identical to
-    chain/device.py::mg_log2_jnp."""
-    z = jax.lax.bitcast_convert_type(x.astype(jnp.float32), jnp.uint32)
-    log_2 = (((z >> jnp.uint32(23)) & jnp.uint32(255)).astype(jnp.int32) - 128).astype(
-        jnp.float32
-    )
-    z = (z & jnp.uint32(~(255 << 23) & 0xFFFFFFFF)) + jnp.uint32(127 << 23)
-    zf = jax.lax.bitcast_convert_type(z, jnp.float32)
-    return log_2 + (
-        (jnp.float32(-0.34484843) * zf + jnp.float32(2.02466578)) * zf
-        - jnp.float32(0.67487759)
-    )
+def _penalty(dd, dg, gap, skip):
+    """compute_score's gap penalty (lchain.c:316-322) on a [W] window."""
+    lin = jnp.float32(gap) * dd.astype(jnp.float32)
+    if skip:
+        lin = lin + jnp.float32(skip) * dg.astype(jnp.float32)
+    log_pen = jnp.where(dd >= 1, mg_log2_jnp((dd + 1).astype(jnp.float32)), 0.0)
+    return (lin + jnp.float32(0.5) * log_pen).astype(jnp.int32)
 
 
 def _fill_kernel(
-    key_ref, tpos_ref, qpos_ref, n_ref,
-    f_out_ref, p_out_ref,
-    rk_ref, rt_ref, rq_ref, rf_ref, mii_ref,
-    *,
-    n_blk: int, w: int,
-    q_span: int, max_dist_t: int, max_dist_q: int, bw: int,
-    chn_pen_gap: float, chn_pen_skip: float,
+    key_ref, tpos_ref, qpos_ref, n_ref, f_ref, p_ref,
+    *, w: int, wp: int, q_span: int, max_dist_t: int, max_dist_q: int,
+    bw: int, gap: float, skip: float,
 ):
-    bb = key_ref.shape[1]
-    n_anchors = n_ref[0, :]  # [Bb]
-    slots = jax.lax.broadcasted_iota(jnp.int32, (w, 1), 0)  # ring slot ids
-    jn = pl.program_id(1)  # anchor-block index (innermost grid dim)
-    base = jn * n_blk
+    r = pl.program_id(0)
+    n_last = key_ref.shape[1] - 1
+    n_r = n_ref[r]
+    slots = jax.lax.broadcasted_iota(jnp.int32, (wp,), 0)
+    in_ring = slots < w
 
-    @pl.when(jn == 0)
-    def _init():
-        # ring starts empty: f = INT32_MIN marks unusable slots
-        rk_ref[:, :] = jnp.zeros((w, bb), jnp.int32)
-        rt_ref[:, :] = jnp.zeros((w, bb), jnp.int32)
-        rq_ref[:, :] = jnp.zeros((w, bb), jnp.int32)
-        rf_ref[:, :] = jnp.full((w, bb), INT32_MIN, jnp.int32)
-        # max_ii carry rows: 0 idx, 1 key, 2 tpos, 3 qpos, 4 f (5-7 pad)
-        mii_ref[:, :] = jnp.concatenate(
-            [
-                jnp.full((1, bb), -1, jnp.int32),
-                jnp.zeros((3, bb), jnp.int32),
-                jnp.full((1, bb), INT32_MIN, jnp.int32),
-                jnp.zeros((3, bb), jnp.int32),
-            ],
-            axis=0,
+    def anchor(i):
+        j = jnp.minimum(i, n_last)
+        return key_ref[r, j], tpos_ref[r, j], qpos_ref[r, j]
+
+    def body(i, carry):
+        (rk, rt, rq, rf, mii_idx, mii_key, mii_tpos, mii_qpos, mii_f,
+         k_i, t_i, q_i) = carry
+        k_n, t_n, q_n = anchor(i + 1)  # prefetch the next step's anchor
+
+        # absolute anchor index held by each ring slot: j == slot (mod w),
+        # i-w <= j < i (the operand of rem is >= 0 on live slots)
+        j_abs = jnp.where(
+            in_ring, (i - 1) - jax.lax.rem(i - 1 - slots + w, w), -1
         )
-
-    pen_gap = jnp.float32(chn_pen_gap)
-    pen_skip = jnp.float32(chn_pen_skip)
-
-    def body(i_local, carry):
-        mii_idx, mii_key, mii_tpos, mii_qpos, mii_f = carry  # each [1, Bb]
-        i = base + i_local  # absolute anchor index
-        k_i = key_ref[pl.ds(i_local, 1), :]  # [1, Bb] (key bits as i32)
-        t_i = tpos_ref[pl.ds(i_local, 1), :]
-        q_i = qpos_ref[pl.ds(i_local, 1), :]
-        alive = (i < n_anchors)[None, :]
-
-        # absolute anchor index per ring slot: j == slot (mod w), in [i-w, i)
-        j_abs = (i - 1) - ((i - 1 - slots) % w)  # [W, 1]
-        j_valid = (j_abs >= 0) & (j_abs < n_anchors[None, :])
-
-        r_key = rk_ref[:, :]
-        r_tpos = rt_ref[:, :]
-        r_qpos = rq_ref[:, :]
-        r_f = rf_ref[:, :]
+        j_valid = j_abs >= 0
 
         # window scores (reference: compute_score, lchain.c:297-356)
-        dq = q_i - r_qpos
-        dr = t_i - r_tpos
-        in_band = j_valid & (r_key == k_i) & (dr <= max_dist_t) & (dr >= 0)
+        dq = q_i - rq
+        dr = t_i - rt
+        in_band = j_valid & (rk == k_i) & (dr <= max_dist_t) & (dr >= 0)
         dd = jnp.abs(dr - dq)
         ok = (
             in_band & (dq > 0) & (dq <= max_dist_q) & (dr != 0)
@@ -107,120 +85,93 @@ def _fill_kernel(
         )
         dg = jnp.minimum(dr, dq)
         sc = jnp.minimum(q_span, dg)
-        lin_pen = pen_gap * dd.astype(jnp.float32) + pen_skip * dg.astype(
-            jnp.float32
+        sc = jnp.where(
+            (dd != 0) | (dg > q_span),
+            sc - _penalty(dd, dg, gap, skip), sc,
         )
-        log_pen = jnp.where(dd >= 1, _mg_log2((dd + 1).astype(jnp.float32)), 0.0)
-        pen = (lin_pen + jnp.float32(0.5) * log_pen).astype(jnp.int32)
-        sc = jnp.where((dd != 0) | (dg > q_span), sc - pen, sc)
-        total = jnp.where(ok, sc + r_f, INT32_MIN)
-
-        j_abs_b = jnp.broadcast_to(j_abs, (w, bb))
-        best = jnp.max(total, axis=0, keepdims=True)  # [1, Bb]
-        best_j = jnp.max(
-            jnp.where(total == best, j_abs_b, -1), axis=0, keepdims=True
-        )
+        total = jnp.where(ok, sc + rf, INT32_MIN)
+        best = jnp.max(total)
+        best_j = jnp.max(jnp.where(total == best, j_abs, -1))
         max_f = jnp.where(best > q_span, best, q_span)
         max_j = jnp.where(best > q_span, best_j, -1)
 
         # banded out-of-window shortcut (reference: lchain.c:473-503)
-        n_inband = jnp.sum(in_band.astype(jnp.int32), axis=0, keepdims=True)
+        n_inband = jnp.sum(in_band.astype(jnp.int32))
         st = i - n_inband
         stale = (
             (mii_idx < 0) | (mii_key != k_i)
             | ((t_i - mii_tpos) > max_dist_t) | (t_i < mii_tpos)
         )
-        fb = jnp.where(in_band, r_f, INT32_MIN)
-        re_best = jnp.max(fb, axis=0, keepdims=True)
-        re_key = jnp.where(fb == re_best, j_abs_b, -1)
-        re_j = jnp.max(re_key, axis=0, keepdims=True)
+        fb = jnp.where(in_band, rf, INT32_MIN)
+        re_best = jnp.max(fb)
+        re_j = jnp.max(jnp.where(fb == re_best, j_abs, -1))
         has = re_best > INT32_MIN
-        mii_idx2 = jnp.where(stale, jnp.where(has, re_j, -1), mii_idx)
-        # fields of the recomputed max_ii: the slot holding re_j
-        sel = re_key == re_j
-        pick = lambda ring: jnp.max(
-            jnp.where(sel, ring, INT32_MIN), axis=0, keepdims=True
-        )
         upd = stale & has
-        mii_key2 = jnp.where(upd, pick(r_key), mii_key)
-        mii_tpos2 = jnp.where(upd, pick(r_tpos), mii_tpos)
-        mii_qpos2 = jnp.where(upd, pick(r_qpos), mii_qpos)
-        mii_f2 = jnp.where(upd, pick(r_f), mii_f)
+        mii_idx2 = jnp.where(stale, jnp.where(has, re_j, -1), mii_idx)
+        # the recomputed max_ii is in band, so its key is k_i and its f is
+        # re_best; only tpos and qpos need a pick from the ring
+        sel = j_abs == re_j
+        mii_key2 = jnp.where(upd, k_i, mii_key)
+        mii_tpos2 = jnp.where(upd, jnp.max(jnp.where(sel, rt, INT32_MIN)), mii_tpos)
+        mii_qpos2 = jnp.where(upd, jnp.max(jnp.where(sel, rq, INT32_MIN)), mii_qpos)
+        mii_f2 = jnp.where(upd, re_best, mii_f)
 
         # score against max_ii when it precedes the examined window
-        use_mii = (mii_idx2 >= 0) & (mii_idx2 < st)
         dqm = q_i - mii_qpos2
         drm = t_i - mii_tpos2
         ddm = jnp.abs(drm - dqm)
         dgm = jnp.minimum(drm, dqm)
         okm = (
-            use_mii & (mii_key2 == k_i)
+            (mii_idx2 >= 0) & (mii_idx2 < st) & (mii_key2 == k_i)
             & (dqm > 0) & (dqm <= max_dist_q)
-            & (drm != 0) & (drm > 0) & (drm <= max_dist_t)
+            & (drm > 0) & (drm <= max_dist_t)
             & (ddm <= bw) & (drm <= max_dist_q)
         )
         scm = jnp.minimum(q_span, dgm)
-        linm = pen_gap * ddm.astype(jnp.float32) + pen_skip * dgm.astype(
-            jnp.float32
-        )
-        logm = jnp.where(ddm >= 1, _mg_log2((ddm + 1).astype(jnp.float32)), 0.0)
         scm = jnp.where(
             (ddm != 0) | (dgm > q_span),
-            scm - (linm + jnp.float32(0.5) * logm).astype(jnp.int32),
-            scm,
+            scm - _penalty(ddm, dgm, gap, skip), scm,
         )
         cand = jnp.where(okm, scm + mii_f2, INT32_MIN)
         better = okm & (cand > max_f)
-        max_f = jnp.where(better, cand, max_f)
+        f_i = jnp.where(better, cand, max_f)
         max_j = jnp.where(better, mii_idx2, max_j)
 
-        f_i = max_f
         # advance max_ii to i when i dominates (reference: lchain.c:503)
-        adv = (
-            (mii_idx2 < 0)
-            | ((mii_key2 == k_i) & (t_i >= mii_tpos2)
-               & ((t_i - mii_tpos2) <= max_dist_t) & (mii_f2 < f_i))
-        ) & alive
-        mii_idx3 = jnp.where(adv, i, mii_idx2)
-        mii_key3 = jnp.where(adv, k_i, mii_key2)
-        mii_tpos3 = jnp.where(adv, t_i, mii_tpos2)
-        mii_qpos3 = jnp.where(adv, q_i, mii_qpos2)
-        mii_f3 = jnp.where(adv, f_i, mii_f2)
+        adv = (mii_idx2 < 0) | (
+            (mii_key2 == k_i) & (t_i >= mii_tpos2)
+            & ((t_i - mii_tpos2) <= max_dist_t) & (mii_f2 < f_i)
+        )
+        mii = (
+            jnp.where(adv, i, mii_idx2), jnp.where(adv, k_i, mii_key2),
+            jnp.where(adv, t_i, mii_tpos2), jnp.where(adv, q_i, mii_qpos2),
+            jnp.where(adv, f_i, mii_f2),
+        )
 
-        # write anchor i into its ring slot and the outputs.  Masked
-        # full-ring writes, NOT dynamic-sublane stores: the [1, Bb] dynamic
-        # slice store serializes the loop body (measured ~21 us/step at
-        # W=64) while the [W, Bb] select is a handful of pipelined VPU ops
-        slot = i % w
-        in_slot = (slots == slot) & alive
-        rk_ref[:, :] = jnp.where(in_slot, k_i, r_key)
-        rt_ref[:, :] = jnp.where(in_slot, t_i, r_tpos)
-        rq_ref[:, :] = jnp.where(in_slot, q_i, r_qpos)
-        rf_ref[:, :] = jnp.where(in_slot, f_i, r_f)
-        f_out_ref[pl.ds(i_local, 1), :] = jnp.where(alive, f_i, 0)
-        p_out_ref[pl.ds(i_local, 1), :] = jnp.where(alive, max_j, -1)
-        return (mii_idx3, mii_key3, mii_tpos3, mii_qpos3, mii_f3)
+        f_ref[r, i] = f_i
+        p_ref[r, i] = max_j
+        put = slots == jax.lax.rem(i, w)
+        ring = (
+            jnp.where(put, k_i, rk), jnp.where(put, t_i, rt),
+            jnp.where(put, q_i, rq), jnp.where(put, f_i, rf),
+        )
+        return (*ring, *mii, k_n, t_n, q_n)
 
+    zeros = jnp.zeros((wp,), jnp.int32)
     init = (
-        mii_ref[pl.ds(0, 1), :],
-        mii_ref[pl.ds(1, 1), :],
-        mii_ref[pl.ds(2, 1), :],
-        mii_ref[pl.ds(3, 1), :],
-        mii_ref[pl.ds(4, 1), :],
+        zeros, zeros, zeros, jnp.full((wp,), INT32_MIN, jnp.int32),
+        jnp.int32(-1), jnp.int32(0), jnp.int32(0), jnp.int32(0),
+        jnp.int32(INT32_MIN),
+        *anchor(0),
     )
-    out = jax.lax.fori_loop(0, n_blk, body, init)
-    mii_ref[pl.ds(0, 1), :] = out[0]
-    mii_ref[pl.ds(1, 1), :] = out[1]
-    mii_ref[pl.ds(2, 1), :] = out[2]
-    mii_ref[pl.ds(3, 1), :] = out[3]
-    mii_ref[pl.ds(4, 1), :] = out[4]
+    jax.lax.fori_loop(0, n_r, body, init)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
         "q_span", "max_dist_t", "max_dist_q", "bw", "max_iter",
-        "chn_pen_gap", "chn_pen_skip", "interpret",
+        "chn_pen_gap", "chn_pen_skip", "num_warps", "interpret",
     ),
 )
 def chain_fill_pallas(
@@ -236,71 +187,31 @@ def chain_fill_pallas(
     max_iter: int,
     chn_pen_gap: float,
     chn_pen_skip: float,
+    num_warps: int = NUM_WARPS,
     interpret: bool = False,
 ):
     """Drop-in replacement for chain_fill_batch (same outputs, bit-exact)."""
     b, n = key.shape
-    w = max_iter
-    if max_dist_t < bw:
-        max_dist_t = bw
-    if max_dist_q < bw:
-        max_dist_q = bw
-
-    # batch in lanes; anchors tiled over the (sequential) inner grid dim so
-    # VMEM holds only one [n_blk, b_blk] tile per buffer while the ring and
-    # max_ii carries persist in scratch across anchor tiles
-    # wider lane blocks amortize per-op issue overhead (the W=64 step's
-    # [W, b_blk] tiles are small enough that op count, not element count,
-    # bounds the step) — measured 0.78 G cells/s at b_blk=128/N=147k
-    b_blk = 256 if b >= 256 else (128 if b >= 128 else b)
-    b_pad = ((b + b_blk - 1) // b_blk) * b_blk
-    n_blk = min(n, 512)
-    n_pad = ((n + n_blk - 1) // n_blk) * n_blk
-    key_t = jnp.zeros((n_pad, b_pad), jnp.int32)
-    key_t = key_t.at[:n, :b].set(
-        jax.lax.bitcast_convert_type(key, jnp.int32).swapaxes(0, 1)
-    )
-    tpos_t = jnp.zeros((n_pad, b_pad), jnp.int32).at[:n, :b].set(
-        tpos.swapaxes(0, 1)
-    )
-    qpos_t = jnp.zeros((n_pad, b_pad), jnp.int32).at[:n, :b].set(
-        qpos.swapaxes(0, 1)
-    )
-    n_t = jnp.zeros((1, b_pad), jnp.int32).at[0, :b].set(n_anchors)
-
+    max_dist_t = max(max_dist_t, bw)
+    max_dist_q = max(max_dist_q, bw)
     kern = functools.partial(
         _fill_kernel,
-        n_blk=n_blk, w=w, q_span=q_span,
+        w=max_iter, wp=pl.next_power_of_2(max_iter), q_span=q_span,
         max_dist_t=max_dist_t, max_dist_q=max_dist_q, bw=bw,
-        chn_pen_gap=chn_pen_gap, chn_pen_skip=chn_pen_skip,
+        gap=chn_pen_gap, skip=chn_pen_skip,
     )
-    grid = (b_pad // b_blk, n_pad // n_blk)
-    blk = lambda i, j: (j, i)
-    nspec = lambda i, j: (0, i)
-    f_t, p_t = pl.pallas_call(
+    n_anchors = jnp.minimum(n_anchors.astype(jnp.int32), n)
+    f, p = pl.pallas_call(
         kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((n_blk, b_blk), blk, memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_blk, b_blk), blk, memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_blk, b_blk), blk, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, b_blk), nspec, memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((n_blk, b_blk), blk, memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_blk, b_blk), blk, memory_space=pltpu.VMEM),
-        ],
+        grid=(b,),
         out_shape=[
-            jax.ShapeDtypeStruct((n_pad, b_pad), jnp.int32),
-            jax.ShapeDtypeStruct((n_pad, b_pad), jnp.int32),
+            jax.ShapeDtypeStruct((b, n), jnp.int32),
+            jax.ShapeDtypeStruct((b, n), jnp.int32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((w, b_blk), jnp.int32),
-            pltpu.VMEM((w, b_blk), jnp.int32),
-            pltpu.VMEM((w, b_blk), jnp.int32),
-            pltpu.VMEM((w, b_blk), jnp.int32),
-            pltpu.VMEM((8, b_blk), jnp.int32),
-        ],
+        compiler_params=pl_triton.CompilerParams(num_warps=num_warps),
+        backend="triton",
         interpret=interpret,
-    )(key_t, tpos_t, qpos_t, n_t)
-    return f_t[:n, :b].swapaxes(0, 1), p_t[:n, :b].swapaxes(0, 1)
+        name="chain_fill",
+    )(jax.lax.bitcast_convert_type(key, jnp.int32), tpos, qpos, n_anchors)
+    live = jnp.arange(n, dtype=jnp.int32)[None, :] < n_anchors[:, None]
+    return jnp.where(live, f, 0), jnp.where(live, p, -1)

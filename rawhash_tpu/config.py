@@ -188,7 +188,7 @@ class MapOptions:
     threshold2: float = 3.5
     peak_height: float = 0.4
 
-    # --- TPU-engine specific capacities (static shapes for XLA) ---
+    # --- device-engine capacities (static shapes for XLA) ---
     # These do not exist in the reference (it allocates dynamically); they
     # bound the padded device arrays.  Overflow is counted and reported.
     max_events_per_chunk: int = 768  # events kept per chunk (~chunk/5 + headroom)

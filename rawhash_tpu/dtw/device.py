@@ -3,7 +3,7 @@
 The reference's antidiagonal-wavefront slanted-band DTW (dtw.cpp:273-520) is
 already shaped for SIMD; here the same recurrence advances one column of the
 band per lax.scan step, with the band living in vector lanes and many
-alignment problems batched in the leading axis — the TPU-native layout for
+alignment problems batched in the leading axis — the device layout for
 the sparse (anchor-to-anchor) chain evaluation where thousands of small
 alignments run at once.
 
@@ -15,7 +15,7 @@ the outer lanes to BIG.
 The top-coupling inside a column (new[o] depends on new[o-1]) is solved with
 the prefix-min identity used by dtw/banded.py:
     new[o] = min_{k<=o}(best[k] + cost[k] - csum[k]) + csum[o]
-which is an associative cummin — vectorizable on the VPU.
+which is an associative cummin — vectorizable across the band.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Index construction: genome (or raw-signal targets) -> flat CSR seed table.
 
-TPU-first re-design of the reference's 2^14-bucket khash index
+Device-first re-design of the reference's 2^14-bucket khash index
 (reference: src/rindex.c).  Rather than pointer-chasing hash buckets, seeds
 are stored as three flat arrays:
 

@@ -1,14 +1,14 @@
 """Device-resident index and batched seed lookup.
 
 The reference probes a khash per query seed (reference: ri_idx_get,
-rindex.c:497-514).  On TPU the table is three flat HBM arrays and lookup is a
+rindex.c:497-514).  On the device the table is three flat arrays and lookup is a
 vectorized binary search over the sorted key array (O(log K) gathers per
 query, thousands of queries per batch), followed by CSR expansion of the
 variable-length position runs into a fixed-capacity anchor buffer — masks
 instead of pointers, static shapes throughout.
 
-Seed locations are carried as two uint32 planes (id | pos<<1|strand) because
-TPUs have no native 64-bit integers.
+Seed locations are carried as two uint32 planes (id | pos<<1|strand): JAX
+runs without 64-bit integers by default.
 """
 
 from __future__ import annotations
@@ -29,10 +29,10 @@ class DeviceIndex:
     pos_id: jnp.ndarray  # uint32 [N]: target id (bit31 unused)
     pos_ps: jnp.ndarray  # uint32 [N]: pos<<1 | strand
     # 2-level lookup acceleration: the reference's 2^b bucket design reborn
-    # for TPU — prefix[t] = first key index whose top `prefix_bits` equal t,
-    # so a query costs 2 prefix gathers + ceil(log2(max bucket)) key gathers
-    # instead of log2(K) gathers (each per-row gather is ~ms-scale on the
-    # VPU, so the level count IS the lookup cost)
+    # on the device — prefix[t] = first key index whose top `prefix_bits`
+    # equal t, so a query costs 2 prefix gathers + ceil(log2(max bucket))
+    # key gathers instead of log2(K) gathers (dependent gathers, so the
+    # level count IS the lookup cost)
     prefix: jnp.ndarray  # int32 [2^prefix_bits + 1]
     n_seq: int
     prefix_bits: int

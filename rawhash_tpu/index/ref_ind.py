@@ -5,7 +5,7 @@ per-sequence metadata (+ optional stored signals) + 2^b hash buckets, each a
 raw khash dump (reference: ri_idx_dump, rindex.c:545-648; ri_idx_load,
 rindex.c:650-776; ri_idx_is_idx, rindex.c:994-1016).  This module parses
 that byte stream into the repo's flat sorted-CSR RawIndex so reference-built
-.ind files (as used throughout test/scripts) drop straight into the TPU
+.ind files (as used throughout test/scripts) drop straight into the
 mapping engine.
 
 Key reconstruction (reference: worker_post, rindex.c:341 / ri_idx_get,

@@ -248,7 +248,8 @@ def run_pipeline(args, iopt, mopt, t0: float) -> int:
     log(resource_summary(t0))
     log(
         f"mapped {n_mapped}/{n_reads} reads, {total_samples} samples in "
-        f"{dt:.2f}s ({total_samples/max(dt,1e-9):.0f} samples/s)"
+        f"{dt:.2f}s ({total_samples/max(dt,1e-9):.0f} samples/s); "
+        f"{engine.stats.get('device_tail_chunks', 0)} chunks on the device tail"
     )
     if engine.stats["hit_overflow"] or engine.stats["prev_overflow"]:
         log(

@@ -1,7 +1,7 @@
 """Multi-chip distribution: hash-range index sharding + collective seed merge.
 
 The reference is single-node with a shared in-RAM khash (SURVEY.md §2.4); the
-TPU-native scale-out axis is net-new.  The design:
+multi-device scale-out axis is net-new.  The design:
 
   * the CSR seed table is split into `n_shards` contiguous hash ranges, each
     shard's offsets rebased to its local position slice (shard_index)
@@ -16,11 +16,11 @@ TPU-native scale-out axis is net-new.  The design:
     assignment is identical to the single-device CSR expansion)
   * everything after the lookup is the SAME code as the single-device step
     (map/device_step.py::finish_chunk): prev-anchor carry, rep_len,
-    all-vs-all filter, Pallas chain fill — so sharded PAF == single PAF
+    all-vs-all filter, chain fill — so sharded PAF == single PAF
 
 With n_shards=1 the collectives are no-ops and this is pure DP; with one
 process per host, `jax.distributed.initialize` (parallel/multihost.py) + the
-same mesh spans hosts (ICI/DCN).
+same mesh spans hosts.
 """
 
 from __future__ import annotations

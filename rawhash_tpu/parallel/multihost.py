@@ -4,8 +4,8 @@ Net-new vs the reference (it is strictly single-node pthreads, SURVEY.md
 §2.4).  One process per host calls `initialize()`; the (dp, shard) mesh from
 parallel/dist.py then spans every host's devices, the sharded seed table is
 materialized with each process providing only its addressable shards, and
-the same all_gather/psum_scatter seed merge rides ICI within a host and DCN
-across hosts — XLA places the collectives, the mapping code is unchanged.
+the same all_gather/psum_scatter seed merge rides NVLink within a host and
+the network across hosts — XLA places the collectives, the mapping code is unchanged.
 
 Run a worker (one per host):
 

@@ -1,89 +1,33 @@
-"""Persistent-XLA-cache configuration and cache-key hardening.
+"""Where the persistent XLA compilation cache lives.
 
-Root cause of the round-4 "every edit invalidates the compile cache"
-mystery (docs/PERF_NOTES.md "Persistent-cache truth"): jax's cache key
-canonicalizes the OUTER StableHLO module with ``strip-debuginfo``
-(``jax._src.cache_key._canonicalize_ir``), so plain XLA programs are
-immune to source-line drift — but a Pallas kernel's Mosaic module is
-serialized to MLIR *bytecode* and embedded as an opaque string inside a
-``stablehlo.custom_call`` backend_config BEFORE that pass can see it,
-with absolute file paths and line numbers inside.  Any edit that shifted
-line numbers in a module traced into a big program changed those payload
-bytes, changed the cache key, and re-paid the 90-165 s compile for every
-program signature.  Verified empirically: lowering the same Pallas
-kernel at two line offsets yields different canonicalized-IR hashes
-stock, identical ones with the patch below.
-
-``harden_cache_key()`` wraps ``tpu_custom_call._lower_mosaic_module_to_asm``
-to run ``strip-debuginfo`` on (a clone of) the Mosaic module before
-serialization.  This canonicalizes the payload itself, so the stock jax
-cache key becomes line-stable and the on-disk executable is byte-stable
-across edits.  Cost: Mosaic compile errors lose source locations — set
-``RAWHASH_TPU_KEEP_MOSAIC_DEBUG=1`` to disable when debugging a kernel.
+JAX_COMPILATION_CACHE_DIR, when set, names the directory and JAX reads it
+itself.  Otherwise the cache goes to one fixed directory inside the checkout
+(`.jax_cache/`, listed in .gitignore): the path is part of the cache key,
+so it must not move between runs.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
-_hardened = False
-
-
-def harden_cache_key() -> bool:
-    """Strip source locations from Mosaic (Pallas) kernel payloads so the
-    persistent compilation cache survives source edits.  Idempotent.
-    Returns True if the patch is (already) installed."""
-    global _hardened
-    if _hardened:
-        return True
-    if os.environ.get("RAWHASH_TPU_KEEP_MOSAIC_DEBUG"):
-        return False
-    try:
-        import jax._src.tpu_custom_call as tcc
-
-        orig = tcc._lower_mosaic_module_to_asm
-        if getattr(orig, "_rawhash_stripped", False):  # another import path won
-            _hardened = True
-            return True
-        PassManager = tcc.PassManager
-
-        def _stripped_lower(module, *, ir_version=None):
-            try:
-                with module.context, module.operation.location:
-                    clone = module.operation.clone()
-                    PassManager.parse("builtin.module(strip-debuginfo)").run(clone)
-
-                class _Shim:  # original only touches .context and .operation
-                    pass
-
-                shim = _Shim()
-                shim.context = module.context
-                shim.operation = clone
-                return orig(shim, ir_version=ir_version)
-            except Exception:
-                return orig(module, ir_version=ir_version)
-
-        _stripped_lower._rawhash_stripped = True
-        tcc._lower_mosaic_module_to_asm = _stripped_lower
-        _hardened = True
-        return True
-    except Exception:
-        return False
+REPO_CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
 
 
-def enable_compile_cache() -> None:
-    """Persistent XLA compilation cache: chunk-step programs are large and
-    this environment's compiles are slow (~90-165 s cold); cache them across
-    processes, with a line-drift-proof key (harden_cache_key)."""
+def cache_dir() -> str:
+    """The compilation-cache directory this process uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(REPO_CACHE_DIR)
+
+
+def enable_compile_cache() -> str:
+    """Turn on the persistent compilation cache (chunk-step programs are
+    large; later processes load them instead of compiling).  Returns the
+    directory."""
     import jax
 
-    harden_cache_key()
-    try:
-        cache_dir = os.environ.get(
-            "RAWHASH_TPU_CACHE", os.path.expanduser("~/.cache/rawhash_tpu_xla")
-        )
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:
-        pass
+    d = cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(d, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", d)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    return d

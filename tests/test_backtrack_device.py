@@ -174,179 +174,70 @@ def test_chain_overflow_counts():
     assert int(np.asarray(ovf_big).max()) == 0
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_pallas_backtrack_matches_oracle(seed):
-    """Pallas SMEM scalar-walk kernel == XLA while_loop backtrack
-    (interpret mode on CPU; the TPU path is exercised by the bench)."""
+def _fill_rows(rng, b, n_cap, n_live):
     import jax.numpy as jnp
 
-    from rawhash_tpu.chain.backtrack_pallas import backtrack_pallas
-
-    rng = np.random.default_rng(seed)
-    b, n_cap = 4, 256
-    n_live = rng.integers(20, n_cap, size=b)
     keys = np.zeros((b, n_cap), np.uint32)
     tposs = np.zeros((b, n_cap), np.int32)
     qposs = np.zeros((b, n_cap), np.int32)
     for i in range(b):
         keys[i], tposs[i], qposs[i] = _random_anchors(rng, int(n_live[i]), n_cap)
-    from rawhash_tpu.chain.device import chain_fill_batch as fill
-
-    f, p = fill(
-        jnp.asarray(keys), jnp.asarray(tposs), jnp.asarray(qposs),
-        jnp.asarray(n_live.astype(np.int32)),
-        q_span=SPAN, max_dist_t=2500, max_dist_q=2500, bw=500, max_iter=64,
+    na = jnp.asarray(np.asarray(n_live, np.int32))
+    f, p = chain_fill_batch(
+        jnp.asarray(keys), jnp.asarray(tposs), jnp.asarray(qposs), na,
+        q_span=SPAN, max_dist_t=2500, max_dist_q=2500, bw=500, max_iter=200,
         chn_pen_gap=0.104, chn_pen_skip=0.0,
     )
-    from rawhash_tpu.chain.backtrack_device import backtrack_batch
-
-    kw = dict(min_cnt=2, min_sc=20, max_drop=500, k_cap=64)
-    na = jnp.asarray(n_live.astype(np.int32))
-    ref = backtrack_batch(f, p, na, **kw)
-    out = backtrack_pallas(f, p, na, **kw, interpret=True)
-    nu, nv = np.asarray(ref[2]), np.asarray(ref[4])
-    assert np.array_equal(nu, np.asarray(out[2]))
-    assert np.array_equal(nv, np.asarray(out[4]))
-    assert np.array_equal(np.asarray(ref[5]), np.asarray(out[5]))
-    for i in range(b):
-        assert np.array_equal(
-            np.asarray(ref[0])[i, : nu[i]], np.asarray(out[0])[i, : nu[i]]
-        )
-        assert np.array_equal(
-            np.asarray(ref[1])[i, : nu[i]], np.asarray(out[1])[i, : nu[i]]
-        )
-        assert np.array_equal(
-            np.asarray(ref[3])[i, : nv[i]], np.asarray(out[3])[i, : nv[i]]
-        )
+    return f, p, na
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_pallas_big_backtrack_matches_oracle(seed):
-    """Width-unbounded HBM/VMEM-resident kernel == XLA while_loop backtrack
-    (interpret mode on CPU; the TPU path is exercised by the bench and the
-    on-chip A/B in tools/profiling)."""
-    import jax.numpy as jnp
-
-    from rawhash_tpu.chain.backtrack_pallas_big import backtrack_pallas_big
-    from rawhash_tpu.chain.device import chain_fill_batch as fill
+@pytest.mark.parametrize("n_cap,seed", [(1024, 0), (1024, 1), (4096, 2), (4096, 3)])
+def test_backtrack_batch_matches_host_wide(n_cap, seed):
+    """The lockstep backtrack (the device tail on every platform) equals
+    mg_chain_backtrack at wide anchor widths: chain scores, counts and the
+    claimed-anchor order (lchain.c:95-194)."""
     from rawhash_tpu.chain.backtrack_device import backtrack_batch
 
     rng = np.random.default_rng(seed)
-    b, n_cap = 3, 256
-    n_live = rng.integers(20, n_cap, size=b)
-    keys = np.zeros((b, n_cap), np.uint32)
-    tposs = np.zeros((b, n_cap), np.int32)
-    qposs = np.zeros((b, n_cap), np.int32)
-    for i in range(b):
-        keys[i], tposs[i], qposs[i] = _random_anchors(rng, int(n_live[i]), n_cap)
-
-    f, p = fill(
-        jnp.asarray(keys), jnp.asarray(tposs), jnp.asarray(qposs),
-        jnp.asarray(n_live.astype(np.int32)),
-        q_span=SPAN, max_dist_t=2500, max_dist_q=2500, bw=500, max_iter=64,
-        chn_pen_gap=0.104, chn_pen_skip=0.0,
+    b = 3
+    n_live = rng.integers(n_cap // 2, n_cap + 1, size=b)
+    f, p, na = _fill_rows(rng, b, n_cap, n_live)
+    kw = dict(min_cnt=2, min_sc=20, max_drop=500)
+    u_sc, u_cnt, n_u, v, n_v, ovf = (
+        np.asarray(x) for x in backtrack_batch(f, p, na, **kw, k_cap=256)
     )
-    kw = dict(min_cnt=2, min_sc=20, max_drop=500, k_cap=64)
-    na = jnp.asarray(n_live.astype(np.int32))
-    ref = backtrack_batch(f, p, na, **kw)
-    out = backtrack_pallas_big(f, p, na, **kw, interpret=True)
-    nu, nv = np.asarray(ref[2]), np.asarray(ref[4])
-    assert np.array_equal(nu, np.asarray(out[2]))
-    assert np.array_equal(nv, np.asarray(out[4]))
-    assert np.array_equal(np.asarray(ref[5]), np.asarray(out[5]))
+    fh, ph = np.asarray(f), np.asarray(p)
     for i in range(b):
-        assert np.array_equal(
-            np.asarray(ref[0])[i, : nu[i]], np.asarray(out[0])[i, : nu[i]]
+        nl = int(n_live[i])
+        u, hv = chain_backtrack(
+            fh[i, :nl].astype(np.int32), ph[i, :nl].astype(np.int64), **kw
         )
-        assert np.array_equal(
-            np.asarray(ref[1])[i, : nu[i]], np.asarray(out[1])[i, : nu[i]]
-        )
-        assert np.array_equal(
-            np.asarray(ref[3])[i, : nv[i]], np.asarray(out[3])[i, : nv[i]]
-        )
+        assert u.shape[0] > 1
+        assert int(n_u[i]) == u.shape[0] and int(ovf[i]) == 0
+        assert np.array_equal(u_sc[i, : n_u[i]], u[:, 0])
+        assert np.array_equal(u_cnt[i, : n_u[i]], u[:, 1])
+        assert np.array_equal(v[i, : n_v[i]], hv)
 
 
-def test_pallas_big_chain_overflow():
-    """k_cap=1 forces the overflow path (accept & ~fits) in the big kernel."""
-    import jax.numpy as jnp
-
-    from rawhash_tpu.chain.backtrack_pallas_big import backtrack_pallas_big
-    from rawhash_tpu.chain.device import chain_fill_batch as fill
+@pytest.mark.parametrize("seed", [4, 5])
+def test_backtrack_batch_k_cap_overflow(seed):
+    """k_cap=1: the first chain matches the host's, every later accepted
+    chain is counted as overflow, and its claims are released."""
     from rawhash_tpu.chain.backtrack_device import backtrack_batch
 
-    rng = np.random.default_rng(7)
-    b, n_cap = 2, 256
-    keys = np.zeros((b, n_cap), np.uint32)
-    tposs = np.zeros((b, n_cap), np.int32)
-    qposs = np.zeros((b, n_cap), np.int32)
-    for i in range(b):
-        keys[i], tposs[i], qposs[i] = _random_anchors(rng, n_cap, n_cap)
-    n_live = jnp.asarray(np.full(b, n_cap, np.int32))
-    f, p = fill(
-        jnp.asarray(keys), jnp.asarray(tposs), jnp.asarray(qposs), n_live,
-        q_span=SPAN, max_dist_t=2500, max_dist_q=2500, bw=500, max_iter=64,
-        chn_pen_gap=0.104, chn_pen_skip=0.0,
-    )
-    kw = dict(min_cnt=2, min_sc=20, max_drop=500, k_cap=1)
-    ref = backtrack_batch(f, p, n_live, **kw)
-    out = backtrack_pallas_big(f, p, n_live, **kw, interpret=True)
-    assert np.array_equal(np.asarray(ref[2]), np.asarray(out[2]))
-    assert np.array_equal(np.asarray(ref[5]), np.asarray(out[5]))
-
-
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_chain_stats_compact_matches_compact_batch(seed):
-    """Kernel-emitted per-chain stats (mlen/blen/lo/hi) + the O(B*K)
-    compaction == compact_batch on the same backtrack outputs (summaries
-    AND the carried-anchor prefix)."""
-    import jax.numpy as jnp
-
-    from rawhash_tpu.chain.backtrack_device import backtrack_batch, compact_batch
-    from rawhash_tpu.chain.backtrack_pallas_big import (
-        backtrack_pallas_big, compact_from_chain_stats,
-    )
-    from rawhash_tpu.chain.device import chain_fill_batch as fill
-
     rng = np.random.default_rng(seed)
-    b, n_cap = 3, 256
-    n_live = rng.integers(20, n_cap, size=b)
-    keys = np.zeros((b, n_cap), np.uint32)
-    tposs = np.zeros((b, n_cap), np.int32)
-    qposs = np.zeros((b, n_cap), np.int32)
+    b, n_cap = 2, 1024
+    f, p, na = _fill_rows(rng, b, n_cap, np.full(b, n_cap))
+    kw = dict(min_cnt=2, min_sc=20, max_drop=500)
+    u_sc, u_cnt, n_u, v, n_v, ovf = (
+        np.asarray(x) for x in backtrack_batch(f, p, na, **kw, k_cap=1)
+    )
+    fh, ph = np.asarray(f), np.asarray(p)
     for i in range(b):
-        keys[i], tposs[i], qposs[i] = _random_anchors(rng, int(n_live[i]), n_cap)
-    kj = jnp.asarray(keys)
-    tj = jnp.asarray(tposs)
-    qj = jnp.asarray(qposs)
-    na = jnp.asarray(n_live.astype(np.int32))
-    f, p = fill(
-        kj, tj, qj, na,
-        q_span=SPAN, max_dist_t=2500, max_dist_q=2500, bw=500, max_iter=64,
-        chn_pen_gap=0.104, chn_pen_skip=0.0,
-    )
-    kw = dict(min_cnt=2, min_sc=20, max_drop=500, k_cap=64)
-    p_out = 128
-
-    u_sc, u_cnt, n_u, v, n_v, ovf = backtrack_batch(f, p, na, **kw)
-    asc_ref, order_ref, summ_ref = compact_batch(
-        u_sc, u_cnt, n_u, v, n_v, kj, tj, qj, q_span=SPAN
-    )
-
-    out = backtrack_pallas_big(
-        f, p, na, tj, qj, **kw, q_span=SPAN, interpret=True
-    )
-    assert len(out) == 10
-    (u_sc2, u_cnt2, n_u2, v2, n_v2, ovf2, u_ml, u_bl, u_lo, u_hi) = out
-    assert np.array_equal(np.asarray(n_u), np.asarray(n_u2))
-    asc2, order2, summ2 = compact_from_chain_stats(
-        u_sc2, u_cnt2, u_ml, u_bl, u_lo, u_hi, n_u2, v2, n_v2,
-        kj, tj, qj, q_span=SPAN, p_out=p_out,
-    )
-    s_ref, s2 = np.asarray(summ_ref), np.asarray(summ2)
-    for i in range(b):
-        nu = int(np.asarray(n_u)[i])
-        assert np.array_equal(s_ref[i, :nu], s2[i, :nu]), (i, seed)
-        take = min(int(np.asarray(n_v)[i]), p_out)
-        assert np.array_equal(
-            np.asarray(asc_ref)[i, :take], np.asarray(asc2)[i, :take]
-        ), (i, seed)
+        u, hv = chain_backtrack(
+            fh[i].astype(np.int32), ph[i].astype(np.int64), **kw
+        )
+        assert u.shape[0] > 1
+        assert int(n_u[i]) == 1 and int(ovf[i]) == u.shape[0] - 1
+        assert (u_sc[i, 0], u_cnt[i, 0]) == (u[0, 0], u[0, 1])
+        assert np.array_equal(v[i, : n_v[i]], hv[: u[0, 1]])

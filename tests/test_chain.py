@@ -160,3 +160,52 @@ def test_regions_pipeline():
     # coordinates cover the true span (t0=5000 .. ~6500)
     assert 4900 < top.rs < 5200
     assert top.mapq > 10  # clean unique mapping should be confident
+
+
+def _mg_log2_f32(x, contract_inner, contract_outer):
+    """mg_log2 in float32, with either multiply-add of its polynomial fused
+    into one rounding (a GPU compiler's FMA contraction) or not."""
+    f32, f64 = np.float32, np.float64
+    a, b, c = f32(-0.34484843), f32(2.02466578), f32(0.67487759)
+
+    def fma(u, v, w):  # one rounding: the exact f64 product, then f32
+        return (f64(u) * v.astype(f64) + f64(w)).astype(f32)
+
+    z = x.astype(f32).view(np.uint32)
+    log_2 = (((z >> 23) & 255).astype(np.int32) - 128).astype(f32)
+    zf = ((z & np.uint32(~(255 << 23) & 0xFFFFFFFF)) + np.uint32(127 << 23)).view(f32)
+    t = fma(a, zf, b) if contract_inner else (a * zf + b).astype(f32)
+    t = (
+        (t.astype(f64) * zf - f64(c)).astype(f32)
+        if contract_outer else (t * zf - c).astype(f32)
+    )
+    return log_2 + t
+
+
+@pytest.mark.parametrize("preset", sorted(__import__(
+    "rawhash_tpu.config", fromlist=["PRESET_NAMES"]).PRESET_NAMES))
+def test_gap_penalty_immune_to_fma_in_mg_log2(preset):
+    """A GPU compiler may fuse mg_log2's multiply-adds (lchain.c:23-31).
+    Over every (dd, dg) the chain fill can score under a preset, the integer
+    gap penalty int(gap*dd + skip*dg + 0.5*mg_log2(dd+1)) is the same with
+    and without that contraction, so the GPU fill matches the reference."""
+    from rawhash_tpu.config import IndexOptions, MapOptions, set_preset
+
+    io, mo = IndexOptions(), MapOptions()
+    set_preset(preset, io, mo)
+    f32 = np.float32
+    span = io.k + io.e - 1
+    gap = f32(f32(mo.chain_gap_scale) * f32(0.01) * f32(span))
+    skip = f32(f32(mo.chain_skip_scale) * f32(0.01) * f32(span))
+    dd = np.arange(1, mo.bw + 1, dtype=np.int64)
+    ref = f32(0.5) * _mg_log2_f32(dd + 1, False, False)
+    dg = np.arange(0, max(mo.max_target_gap_length, mo.max_query_gap_length,
+                          mo.bw) + 1).astype(f32)
+    for inner, outer in ((True, False), (False, True), (True, True)):
+        fused = f32(0.5) * _mg_log2_f32(dd + 1, inner, outer)
+        for row in np.flatnonzero(fused != ref):
+            lin = (gap * f32(dd[row]) + skip * dg).astype(f32)
+            assert np.array_equal(
+                (lin + ref[row]).astype(f32).astype(np.int32),
+                (lin + fused[row]).astype(f32).astype(np.int32),
+            ), (preset, int(dd[row]), inner, outer)

@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the virtual 8-CPU mesh.
 
-The contract under test (VERDICT round-1 item 1): the sharded chunk step is
+The contract under test: the sharded chunk step is
 the FULL mapping step — prev-anchor carry, rep_len, occurrence filter,
 all-vs-all filter, chain fill — and a mesh engine produces IDENTICAL PAF to
 the single-device engine on a multi-chunk adaptive workload for any shard
@@ -87,7 +87,7 @@ def _map_all(index, reads, n_shards):
 
 def test_sharded_engine_paf_identical(index, workload):
     """8-device-mesh PAF == single-device PAF, n_shards in {1, 2, 4},
-    multi-chunk adaptive workload (the round-1 VERDICT 'Done =' bar)."""
+    multi-chunk adaptive workload."""
     import jax
 
     assert len(jax.devices()) >= 8, "conftest should provide 8 virtual devices"
@@ -104,7 +104,7 @@ def test_sharded_engine_paf_identical(index, workload):
 
 def test_dist_step_runs_all_vs_all(workload):
     """The sharded step honors the all-vs-all name-rank filter (sig-target
-    indexing + ALL_CHAINS), which the round-1 demo omitted."""
+    indexing + ALL_CHAINS)."""
     from rawhash_tpu.config import IndexFlag, MapFlag
     from rawhash_tpu.index.build import build_index_from_signals
     from rawhash_tpu.map.engine import MappingEngine
@@ -142,8 +142,7 @@ def test_sharded_engine_growth_retry_parity(workload):
     """Overflowed rows in the SHARDED engine quarantine exactly like the
     single-device engine: a tiny initial anchor capacity forces the growth
     path (regrows > 0), hits are never silently truncated, and the PAF still
-    matches the single-device engine on the same squeezed capacity
-    (round-3 VERDICT item 7)."""
+    matches the single-device engine on the same squeezed capacity."""
     from rawhash_tpu.map.engine import MappingEngine
 
     w_index, reads = workload
@@ -193,8 +192,7 @@ def test_sharded_engine_shard_hits_observable(workload):
 def test_sharded_engine_device_tail_paf_identical(index, workload, monkeypatch):
     """The sharded engine's DEVICE tail (backtrack/compaction inside the
     shard_map, carried anchors device-resident with their batch sharding)
-    produces identical PAF to the single-device host-tail baseline
-    (round-4 VERDICT item 4: the tail was host-only for dist)."""
+    produces identical PAF to the single-device host-tail baseline."""
     monkeypatch.setenv("RAWHASH_TPU_DEVICE_TAIL", "1")
     w_index, reads = workload
     monkeypatch.delenv("RAWHASH_TPU_DEVICE_TAIL")

@@ -263,9 +263,9 @@ def test_reference_adversarial_repeats_low_snr(tmp_path):
     """Adversarial-input parity: repeat-dense genome (8 mutated copies of a
     600 bp unit = ~35% repeat content) + low-SNR reads (noise 3x the clean
     fixtures').  Quantifies the device fill's documented max_skip deviation
-    where it would matter most — repeat-rich anchor sets — and the VERDICT
-    round-2 target of >=99% location agreement (measured: 29/29 = 100%,
-    zero mapped/unmapped status mismatches)."""
+    where it would matter most — repeat-rich anchor sets — against a target
+    of >=99% location agreement (measured on the CPU: 29/29 = 100%, zero
+    mapped/unmapped status mismatches)."""
     from rawhash_tpu.io.sigfile import write_slow5
     from rawhash_tpu.io.signal_gen import simulate_read
     from rawhash_tpu.pore import synthetic_pore

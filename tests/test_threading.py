@@ -213,7 +213,7 @@ def test_concurrent_map_batch_same_engine():
 
 
 def test_stress_pipeline_quarantine_20x(setup):
-    """CI-style stress loop (round-4 VERDICT item 8): 20 iterations of the
+    """CI-style stress loop: 20 iterations of the
     threaded pipeline (3 batches in flight, worker pool fetching + host
     tails) with capacities squeezed so the quarantine regrow path runs
     CONCURRENTLY with prefetch, under PYTHONDEVMODE-style checks

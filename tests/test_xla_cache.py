@@ -1,53 +1,48 @@
-"""Cache-key hardening: Mosaic payloads must be source-location-independent.
+"""Compilation-cache location: JAX_COMPILATION_CACHE_DIR when set, else one
+fixed directory inside the checkout that git ignores."""
 
-jax's persistent-cache key strips debug info from the outer StableHLO
-module, but a Pallas kernel's Mosaic module is serialized into an opaque
-custom_call payload before that pass runs — with file/line locations
-inside.  ``harden_cache_key`` strips them at serialization time so edits
-that shift line numbers stop invalidating every big-program cache entry
-(the round-4 "90-165 s recompile after every edit" failure mode).
-"""
+import os
+import subprocess
+import sys
+from pathlib import Path
 
-import pytest
+from rawhash_tpu.utils.xla_cache import REPO_CACHE_DIR, cache_dir
 
-
-def _make_module(locline: int):
-    import jax._src.tpu_custom_call as tcc
-    from jax._src.interpreters import mlir
-
-    ctx = mlir.make_ir_context()
-    ctx.allow_unregistered_dialects = True
-    asm = f"""
-module {{
-  func.func @main(%arg0: f32) -> f32 {{
-    %0 = arith.addf %arg0, %arg0 : f32 loc("/tmp/x.py":{locline}:0)
-    return %0 : f32
-  }}
-}}
-"""
-    with ctx:
-        return tcc.ir.Module.parse(asm)
+REPO = Path(__file__).resolve().parent.parent
+PROBE = (
+    "import jax\n"
+    "from rawhash_tpu.utils.xla_cache import enable_compile_cache\n"
+    "d = enable_compile_cache()\n"
+    "print(d, jax.config.jax_compilation_cache_dir)\n"
+)
 
 
-def test_mosaic_payload_location_independent():
-    from rawhash_tpu.utils.xla_cache import harden_cache_key
-
-    assert harden_cache_key(), "patch failed to install"
-    import jax._src.tpu_custom_call as tcc
-
-    a, flags_a = tcc._lower_mosaic_module_to_asm(_make_module(10))
-    b, flags_b = tcc._lower_mosaic_module_to_asm(_make_module(9990))
-    assert a == b, "payload bytes still depend on source locations"
-    assert flags_a == flags_b
-    assert len(a) > 0
+def _probe(**env_extra):
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env.update(JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO), **env_extra)
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE], env=env, cwd=str(REPO),
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    return out.stdout.split()
 
 
-def test_harden_idempotent():
-    from rawhash_tpu.utils.xla_cache import harden_cache_key
+def test_env_var_names_the_cache(tmp_path):
+    d = str(tmp_path / "xla")
+    assert _probe(JAX_COMPILATION_CACHE_DIR=d) == [d, d]
 
-    assert harden_cache_key()
-    import jax._src.tpu_custom_call as tcc
 
-    fn1 = tcc._lower_mosaic_module_to_asm
-    assert harden_cache_key()
-    assert tcc._lower_mosaic_module_to_asm is fn1, "double-wrapped"
+def test_default_is_fixed_inside_checkout(monkeypatch):
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    assert Path(cache_dir()) == REPO_CACHE_DIR == REPO / ".jax_cache"
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert ".jax_cache/" in ignored
+
+
+def test_default_is_stable_across_processes(tmp_path):
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    first = _probe(TMPDIR=str(tmp_path / "a"))
+    second = _probe(TMPDIR=str(tmp_path / "b"))
+    assert first == second == [str(REPO_CACHE_DIR)] * 2

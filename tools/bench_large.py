@@ -45,7 +45,8 @@ def make_genome(mbp: float, repeat_rich: bool, rng):
     return "".join(np.concatenate([uniq] + reps))
 
 
-def main():
+def run(argv=None) -> dict:
+    """Run one large-genome workload; returns the result dict."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--mbp", type=float, default=100.0)
     ap.add_argument("--reads", type=int, default=256)
@@ -69,7 +70,7 @@ def main():
                     help="split the genome into this many sequences "
                          "(human-shaped; REQUIRED past 2 Gbp: a single "
                          "sequence overflows the u32 pos<<1|rev packing)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if args.mbp * 1e6 / args.chrs >= 2**31:
         ap.error("--chrs too small: per-sequence length must stay < 2^31")
 
@@ -106,7 +107,7 @@ def main():
           file=sys.stderr)
 
     t0 = time.time()
-    engine = MappingEngine(index, mopt)  # uploads the table to HBM
+    engine = MappingEngine(index, mopt)  # uploads the table to the device
     import jax
 
     jax.block_until_ready(engine.didx.keys) if engine.didx else None
@@ -217,7 +218,11 @@ def main():
         if ref:
             out["reference_same_host_bps"] = round(ref, 1)
             out["vs_reference_same_host"] = round(out["bps"] / ref, 3)
-    print(json.dumps(out))
+    return out
+
+
+def main():
+    print(json.dumps(run()))
 
 
 if __name__ == "__main__":

@@ -5,15 +5,14 @@ Maps a fixed workload with the (dp, shard) mesh at 1/2/4/8 virtual devices
 reports steady-state wall clock, parallel efficiency vs 1 device, and the
 per-shard seed-hit balance.
 
-CAVEAT for reading the numbers: all virtual devices share this host's 2
-physical cores, so wall-clock CANNOT improve with device count here — the
-curve measures the partition + collective + dispatch OVERHEAD the mesh
-adds at fixed total work (perfect scaling on real hardware would show as
-flat wall here iff overhead were zero).  Per-device efficiency on real
-multi-chip ICI is what BASELINE.json's >=80%-at-2-hosts bar is about;
-this harness bounds the software-side overhead term of that number.
+Every process pins itself to the CPU, so the tool never opens a GPU.
+Reading the numbers: all virtual devices share this host's cores, so wall
+clock CANNOT improve with device count here — the curve measures the
+partition + collective + dispatch OVERHEAD the mesh adds at fixed total
+work (perfect scaling on real hardware would show as flat wall here iff
+overhead were zero).
 
-Usage: python tools/profiling/dist_scaling.py [--out DIST_SCALING.json]
+Usage: python tools/profiling/dist_scaling.py [--out dist_scaling.json]
 Child mode (internal): ... --child N_DEV
 """
 
@@ -76,7 +75,7 @@ def child(n_dev: int) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="DIST_SCALING.json")
+    ap.add_argument("--out", default="dist_scaling.json")
     ap.add_argument("--child", type=int, default=0)
     ap.add_argument("--devices", default="1,2,4,8")
     args = ap.parse_args()
@@ -124,7 +123,7 @@ def main() -> None:
                 )
     result = {
         "workload": "200 kbp genome, 32 reads x 2000 samples, 3 passes",
-        "note": ("virtual CPU mesh on 2 physical cores: wall_vs_1dev is the "
+        "note": ("virtual CPU mesh on shared cores: wall_vs_1dev is the "
                  "mesh-software overhead factor at fixed work, NOT hardware "
                  "scaling; shard_balance = min/max per-shard owned hits"),
         "rows": rows,

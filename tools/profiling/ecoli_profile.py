@@ -1,11 +1,10 @@
 """Per-phase wall profile of the ecoli-scale (5 Mbp, sensitive) chunk cycle.
 
-BENCH_r03 says the ecoli workload is submit-bound (199 s submit vs 23 s
-device+transfer).  This script times every host-side phase of one batch's
-chunk loop separately — chunk assembly, f16 cast, pack build, H2D bytes,
-dispatch enqueue, scalar fetch, packed fetch, host chain tail — for the
-host-tail and (optionally) device-tail engines, so the 7 s/chunk cycle can
-be attributed before optimizing.
+This script times every host-side phase of one batch's chunk loop
+separately — chunk assembly, f16 cast, pack build, H2D bytes, dispatch
+enqueue, scalar fetch, packed fetch, host chain tail — for the host-tail and
+(optionally) device-tail engines, so the chunk cycle can be attributed
+before optimizing.
 
 Usage: python tools/profiling/ecoli_profile.py [--device-tail] [--genome-mbp N]
 """
